@@ -1,7 +1,7 @@
 """Whole-graph golden parity for EVERY example config.
 
 The reference treats its 19 examples as the acceptance suite (SURVEY.md §4);
-here each config in host/examples.py renders twice — through the TPU engine
+here each config in host/examples.py renders twice — through the device engine
 and through the sequential oracle twins (backend="oracle": oracle/examples.py
 walker-driven instruments, oracle/script.py bytecode interpreter) — and the
 difference must stay under the FIDELITY.md budget (RMS < -90 dBFS).

@@ -61,35 +61,37 @@ class TestVoiceSharding:
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 class TestShardedPallasKernels:
-    """GSPMD sharding over the PRODUCTION kernel path.
+    """Voice sharding over the GPU kernel path.
 
-    The default gate (ops/pallas_mode.enabled) falls back to the affine
-    scans on CPU, so the plain sharding tests never exercise the Pallas
-    SVF/table kernels. ZANG_PALLAS_INTERPRET=1 forces the kernel paths in
-    interpreter mode on the virtual mesh; a GSPMD partitioning bug in the
-    kernels would surface here instead of only on real multi-chip hardware.
+    On the CPU the filter takes the affine scan, so the plain sharding
+    tests never reach the kernels. Here the path choice is set to the
+    GPU's and the SVF kernel runs in interpret mode: the voice-sharded
+    render must go through ops/backend.voice_parallel's shard_map (a
+    kernel call is opaque to GSPMD) and still equal the one-device render.
     """
 
     def test_sharded_pallas_interpret_equals_unsharded(self, monkeypatch):
-        from zang_tpu.ops import pallas_svf
+        from zang_tpu.ops import backend, pallas_svf
 
-        calls = {"table": 0, "plain": 0}
-        orig_table = pallas_svf.svf_filter_pallas_table
-        orig_plain = pallas_svf.svf_filter_pallas
+        calls = {"kernel": 0, "sharded": 0}
+        orig_kernel = pallas_svf.svf_filter_pallas
+        orig_vp = backend.voice_parallel
 
-        def spy_table(*a, **k):
-            calls["table"] += 1
-            assert k.get("interpret"), "kernel must run in interpret mode on CPU"
-            return orig_table(*a, **k)
+        def spy_kernel(*a, **k):
+            calls["kernel"] += 1
+            return orig_kernel(*a, **k, interpret=True)
 
-        def spy_plain(*a, **k):
-            calls["plain"] += 1
-            assert k.get("interpret"), "kernel must run in interpret mode on CPU"
-            return orig_plain(*a, **k)
+        def spy_vp(fn, voice_args, shared_args=()):
+            if backend._auto_axes():
+                calls["sharded"] += 1
+            return orig_vp(fn, voice_args, shared_args)
 
-        monkeypatch.setattr(pallas_svf, "svf_filter_pallas_table", spy_table)
-        monkeypatch.setattr(pallas_svf, "svf_filter_pallas", spy_plain)
-        monkeypatch.setenv("ZANG_PALLAS_INTERPRET", "1")
+        monkeypatch.setattr(pallas_svf, "svf_filter_pallas", spy_kernel)
+        monkeypatch.setattr(backend, "voice_parallel", spy_vp)
+        monkeypatch.setattr(
+            backend, "use_kernel",
+            lambda platform=None, *, mix=False, per_sample_res=False:
+            not (mix or per_sample_res))
 
         sr = sm.SAMPLE_RATE
         total = int(1.0 * sr)
@@ -113,16 +115,37 @@ class TestShardedPallasKernels:
             )
 
         base = render_performance(build(False), total, chunk_size=16384)
-        assert calls["table"] + calls["plain"] > 0, (
-            "Pallas kernel path was not taken — gate regressed")
-        n_unsharded = calls["table"] + calls["plain"]
+        assert calls["kernel"] > 0, "kernel path was not taken"
+        assert calls["sharded"] == 0
         sharded = render_performance_sharded(
             build(True), total, mesh, chunk_size=16384)
-        assert calls["table"] + calls["plain"] > n_unsharded
+        assert calls["sharded"] > 0, "kernel was not split over the mesh"
         dev = deviation_dbfs(base, sharded)
         # identical kernel arithmetic on both sides; only the cross-device
         # mix reduction order differs
         assert dev[0] < -120.0, dev
+
+    def test_voice_parallel_pads_and_crops(self):
+        """A voice count that does not divide the mesh is padded for the
+        shard_map and cropped after; the FM kernel (interpret) under a
+        mesh equals the unsharded call."""
+        import jax.numpy as jnp
+
+        from zang_tpu.ops.pallas_fm import fm_feedback_pallas
+
+        rng = np.random.default_rng(3)
+        V, n = 13, 96
+        base = jnp.asarray(rng.uniform(0, 30, (V, n)).astype(np.float32))
+        f1 = jnp.zeros((V,), jnp.float32)
+        run = jax.jit(lambda b, f: fm_feedback_pallas(b, 0.5, 1, f, f,
+                                                       interpret=True))
+        want = run(base, f1)
+        with jax.set_mesh(make_mesh(8)):
+            got = jax.jit(lambda b, f: fm_feedback_pallas(
+                b, 0.5, 1, f, f, interpret=True))(base, f1)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 class TestShardedPostFx:

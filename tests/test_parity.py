@@ -2,7 +2,7 @@
 
 Renders the same performance with (a) the oracle engine in parity mode
 (sequential per-sample C++/NumPy, reference block/span/event driver) and
-(b) the TPU engine (chunked scans, gather programs), and requires the final
+(b) the device engine (chunked scans, gather programs), and requires the final
 mixes to agree below -90 dBFS RMS.
 """
 
@@ -17,7 +17,7 @@ from zang_tpu.graph.fidelity import deviation_dbfs
 from zang_tpu.graph.render import Performance, render_performance
 from zang_tpu.oracle import engine as oracle_engine
 from zang_tpu.oracle import instruments as oracle_instruments
-from zang_tpu.host import instruments as tpu_instruments
+from zang_tpu.host import instruments as dev_instruments
 
 SR = 44100.0
 F32 = np.float32
@@ -49,7 +49,7 @@ def oracle_render(song, polyphony, make_module, make_params, total, num_temps):
     )[0]
 
 
-def tpu_render(song, polyphony, instrument, total, chunk=8192):
+def dev_render(song, polyphony, instrument, total, chunk=8192):
     tls = compile_timelines(song, polyphony, SR, total, block_size=1024)
     perf = Performance([(instrument, tls)], SR)
     return render_performance(perf, total, chunk_size=chunk)[0]
@@ -71,7 +71,7 @@ class TestPMOscParity:
             return {"sample_rate": sr, "freq": p["freq"], "note_on": p["note_on"]}
 
         a = oracle_render(song, 3, make_module, make_params, total, num_temps=3)
-        b = tpu_render(song, 3, tpu_instruments.PMOscInstrument(0.4), total)
+        b = dev_render(song, 3, dev_instruments.PMOscInstrument(0.4), total)
         dev = deviation_dbfs(a, b)
         report("pm_osc", dev)
         assert dev[0] < -90.0, dev
@@ -89,7 +89,7 @@ class TestNiceParity:
             return {"sample_rate": sr, "freq": p["freq"], "note_on": p["note_on"]}
 
         a = oracle_render(song, 4, make_module, make_params, total, num_temps=2)
-        b = tpu_render(song, 4, tpu_instruments.NiceInstrument(0.25), total)
+        b = dev_render(song, 4, dev_instruments.NiceInstrument(0.25), total)
         dev = deviation_dbfs(a, b)
         report("nice", dev)
         assert dev[0] < -90.0, dev
@@ -108,7 +108,7 @@ class TestHardSquareParity:
             return {"sample_rate": sr, "freq": p["freq"], "note_on": p["note_on"]}
 
         a = oracle_render(song, 2, make_module, make_params, total, num_temps=2)
-        b = tpu_render(song, 2, tpu_instruments.HardSquareInstrument(), total)
+        b = dev_render(song, 2, dev_instruments.HardSquareInstrument(), total)
         dev = deviation_dbfs(a, b)
         report("hard_square", dev)
         assert dev[1] < -120.0, dev  # ulp-level: XLA f32 division differs by 1 ulp from IEEE
@@ -118,9 +118,9 @@ class TestChunkInvariance:
     def test_chunk_size_does_not_change_output(self):
         song = make_song(seed=4)
         total = int(1.5 * SR)
-        inst = tpu_instruments.NiceInstrument(0.25)
-        a = tpu_render(song, 2, inst, total, chunk=4096)
-        b = tpu_render(song, 2, tpu_instruments.NiceInstrument(0.25), total, chunk=16384)
+        inst = dev_instruments.NiceInstrument(0.25)
+        a = dev_render(song, 2, inst, total, chunk=4096)
+        b = dev_render(song, 2, dev_instruments.NiceInstrument(0.25), total, chunk=16384)
         # oscillators/envelopes are bit-invariant to chunking; the filter's
         # associative-scan tree shape depends on chunk length, so outputs may
         # differ by ~1 ulp there.

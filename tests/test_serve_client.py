@@ -42,6 +42,9 @@ class TestTerminalPlayer:
             c = LiveClient(srv.host, srv.port)
             with TerminalPlayer(c, gate=0.25, wav_path=str(wav),
                                 quiet=True) as player:
+                # stream flowing first: the gate is wall-clock, and a
+                # first-block compile longer than it would swallow the note
+                wait_blocks(player, 2)
                 player.press("q")
                 wait_blocks(player, 12)
                 assert player.level > 0.01  # VU sees the note
@@ -189,6 +192,7 @@ class TestAudioSink:
             c = LiveClient(srv.host, srv.port)
             with TerminalPlayer(c, gate=0.2, quiet=True,
                                 sink_cmd=f"cat > {out}") as player:
+                wait_blocks(player, 2)  # compile done before the gate runs
                 player.press("q")
                 wait_blocks(player, 12)
         data = np.fromfile(str(out), np.int16)

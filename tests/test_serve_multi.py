@@ -119,9 +119,13 @@ class TestRouting:
                 assert srv.num_clients == 2
                 a.send_event(0, {"freq": 440.0, "note_on": True})
                 b.send_event(0, {"freq": 220.0, "note_on": True})
-                # interleave reads so neither fleet's stream backs up
+                # interleave reads so neither fleet's stream backs up. In
+                # non-realtime mode a fleet renders ahead into its socket
+                # buffers (megabytes: thousands of blocks); while the other
+                # fleet compiles, hundreds of silent blocks can precede the
+                # note-on
                 peak_a = peak_b = 0.0
-                for _ in range(200):
+                for _ in range(5000):
                     peak_a = max(peak_a, float(np.abs(a.read_block()).max()))
                     peak_b = max(peak_b, float(np.abs(b.read_block()).max()))
                     if peak_a > 100 and peak_b > 100:

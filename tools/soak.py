@@ -262,7 +262,7 @@ def main(argv=None) -> int:
                     help="print only the final JSON report")
     args = ap.parse_args(argv)
 
-    os.environ.setdefault("ZANG_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     report = run_soak(seconds=args.seconds, clients=args.clients,
                       block=args.block, key_blocks=args.key_blocks,
                       churn=not args.no_churn,

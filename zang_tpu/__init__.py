@@ -1,7 +1,7 @@
-"""zang_tpu — a TPU-native modular audio synthesis framework.
+"""zang_tpu — an accelerator-native modular audio synthesis framework.
 
 A ground-up rebuild of the capabilities of dbandstra/zang (a Zig real-time
-audio synthesis library) designed for TPU hardware with JAX/XLA/Pallas:
+audio synthesis library) in JAX/XLA/Pallas, running on an NVIDIA GPU:
 
 - Modules are pure functions ``(state, params) -> (state, audio)`` over
   ``[..., time]`` tensors instead of imperative per-sample paint loops
@@ -16,7 +16,7 @@ audio synthesis library) designed for TPU hardware with JAX/XLA/Pallas:
 
 Subpackages:
   core      host-side event system, timeline compiler, mixdown, WAV, pitch
-  ops       TPU kernels for the 13 DSP modules + scan utilities
+  ops       device ops for the 13 DSP modules, scans, GPU kernels
   graph     module protocol, voices, offline renderer
   oracle    NumPy/C++ reference engine with exact zang semantics (golden)
   parallel  device-mesh sharding (voice/batch axes)
@@ -26,13 +26,6 @@ Subpackages:
 """
 
 __version__ = "0.2.0"
-
-# Opt-in platform selection (ZANG_PLATFORM=cpu|tpu|...) applied before any
-# jax-heavy submodule can initialize a backend — JAX_PLATFORMS is unreliable
-# in containers that force-register remote platform plugins.
-from .platform import apply_platform_env as _apply_platform_env
-
-_apply_platform_env()
 
 from . import core  # noqa: F401,E402
 

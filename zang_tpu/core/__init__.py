@@ -1,7 +1,7 @@
 """Host-side core: event system, note timeline compiler, mixdown, WAV, pitch.
 
 These are the parts of the reference that are control-plane, not DSP: they run
-on the host in Python and compile note events into dense tensors the TPU
+on the host in Python and compile note events into dense tensors the device
 consumes (reference: src/zang/notes.zig, src/zang/trigger.zig).
 """
 

@@ -34,7 +34,7 @@ def mixdown_s8_np(mix: np.ndarray, vol: float) -> np.ndarray:
 
 
 def mixdown_s16(mix: jnp.ndarray, vol: float) -> jnp.ndarray:
-    """JAX version of mixdown_s16_np (jit/TPU friendly)."""
+    """JAX version of mixdown_s16_np (jit friendly, runs on device)."""
     mul = jnp.float32(vol) * jnp.float32(32767.0)
     v = mix.astype(jnp.float32) * mul
     out = jnp.trunc(v)

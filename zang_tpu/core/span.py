@@ -1,6 +1,6 @@
 """Span: a half-open [start, end) sample range within a mix block.
 
-Reference: src/zang/basics.zig:3-11. In the TPU build spans only exist on the
+Reference: src/zang/basics.zig:3-11. In this build spans only exist on the
 host, where the event system splits blocks at note boundaries; the device
 consumes dense per-sample tensors instead.
 """

@@ -6,7 +6,7 @@ note id begins. Once a note has started it is remembered forever (so release
 tails keep rendering, trigger.zig:38-41). Same-frame impulses: the later one
 wins (trigger.zig:167-178).
 
-In the TPU build the Trigger runs on the host as part of timeline
+In this build the Trigger runs on the host as part of timeline
 compilation; its output spans become dense segment tensors.
 """
 

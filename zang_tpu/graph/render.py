@@ -9,7 +9,8 @@ l/b, delay lines) carry across chunks.
 Segment programs (ops.segprog.SegProgram) in instrument plans are sliced
 per chunk on the host and fed to the scan as xs, so the device evaluates
 piecewise tables with O(K_chunk) masked delta sums — no gathers, no
-searchsorted (both pathologically slow on TPU).
+searchsorted (ROADMAP Design 5 measures whether a plain lookup would do
+on the GPU).
 
 An Instrument provides:
   plan(timelines, sample_rate) -> program dict; SegProgram leaves get

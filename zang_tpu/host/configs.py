@@ -87,11 +87,7 @@ class SamplerInstrument:
                 values[name][v, :k] = p.values[name][0]
                 values[name][v, k:] = p.values[name][0, k - 1]
         self.ratio = float(F32(F32(self.effective_sample_rate()) / F32(sample_rate)))
-        # accelerated taps: the pallas table-lookup kernel handles arbitrary
-        # index patterns; only table size gates it (ops.sampler)
-        return {"sampler": SegProgram(starts=starts, values=values),
-                "windowed": sampler_ops.lookup_accelerated(
-                    self.table.num_samples)}
+        return {"sampler": SegProgram(starts=starts, values=values)}
 
     def init_state(self, num_voices: int):
         return {
@@ -104,7 +100,6 @@ class SamplerInstrument:
         out = sampler_ops.eval_sampler(
             vals, ctx.t_idx, jnp.asarray(self.table.data_f32),
             self.table.num_samples, self.ratio, self.loop,
-            windowed=bool(prog.get("windowed", False)),
         )
         out = out * jnp.float32(2.5)  # example_sampler.zig:106
         if self.distort:

@@ -64,7 +64,7 @@ DEFAULT_CHUNK = 16384
 
 
 def _render_script(src, name, song, seconds, sr=44100.0, polyphony=1,
-                   chunk=None, param_map=None, backend="tpu"):
+                   chunk=None, param_map=None, backend="device"):
     total = int(seconds * sr)
     if chunk is None:
         chunk = DEFAULT_CHUNK
@@ -105,7 +105,7 @@ def _oracle_twin_part(inst, tls):
 
 
 def _render_parts(parts, seconds, sr, num_channels=1, post_fn=None,
-                  post_init=None, chunk=None, backend="tpu",
+                  post_init=None, chunk=None, backend="device",
                   oracle_parts=None, oracle_post=None):
     total = int(seconds * sr)
     if chunk is None:
@@ -127,7 +127,7 @@ def _render_parts(parts, seconds, sr, num_channels=1, post_fn=None,
 # (examples/example_play.zig: PMOscInstrument(1.0) / FilteredSawtooth).
 
 
-def ex_play(seconds=6.0, backend="tpu"):
+def ex_play(seconds=6.0, backend="device"):
     sr = 48000.0
     melody = _simple_song([
         (0.2 + i * 0.45, 0.35, A4 * tt.rel_freq(n))
@@ -155,7 +155,7 @@ end
 """
 
 
-def ex_envelope(seconds=8.0, backend="tpu"):
+def ex_envelope(seconds=8.0, backend="device"):
     song = _simple_song([(0.1, 4.0, A4 * tt.c2)])
     return _render_script(ENVELOPE_SCRIPT, "EnvDemo", song, seconds,
                           sr=48000.0, backend=backend)
@@ -172,7 +172,7 @@ end
 """
 
 
-def ex_vibrato(seconds=4.0, backend="tpu"):
+def ex_vibrato(seconds=4.0, backend="device"):
     song = _simple_song([(0.1, 1.5, A4 * tt.a3), (2.0, 1.5, A4 * tt.d4)])
     return _render_script(VIBRATO_SCRIPT, "Vib", song, seconds, sr=48000.0,
                           backend=backend)
@@ -208,7 +208,7 @@ end
 """
 
 
-def ex_laser(seconds=3.0, seed=0, backend="tpu"):
+def ex_laser(seconds=3.0, seed=0, backend="device"):
     rng = np.random.default_rng(seed)
     song = []
     t = 0.1
@@ -227,7 +227,7 @@ def ex_laser(seconds=3.0, seed=0, backend="tpu"):
                           backend=backend)
 
 
-def ex_curve(seconds=4.5, backend="tpu"):
+def ex_curve(seconds=4.5, backend="device"):
     src = """
 CurvePlayer = defmodule freq_mul: constant, note_on: boolean, begin
     out SineOsc(
@@ -279,7 +279,7 @@ end
 """
 
 
-def ex_subsong(seconds=8.0, backend="tpu"):
+def ex_subsong(seconds=8.0, backend="device"):
     song = _simple_song([(0.0, 5.5, A4 * tt.c4), (6.0, 1.8, A4 * tt.e4)])
     return _render_script(SUBSONG_SCRIPT, "SubtrackPlayer", song, seconds,
                           backend=backend)
@@ -290,7 +290,7 @@ def ex_subsong(seconds=8.0, backend="tpu"):
 # impulse streams are active — host-side span intersection feeding one voice.
 
 
-def ex_two(seconds=4.0, backend="tpu"):
+def ex_two(seconds=4.0, backend="device"):
     sr = 48000.0
     # stream 0: keys (freq); stream 1: color changes; intersect note_on
     s0 = [(0.2, 1.2, A4 * tt.a3), (1.8, 1.8, A4 * tt.c4)]
@@ -322,7 +322,7 @@ end
 # host generates its impulse stream and HardSquare plays it.
 
 
-def ex_arpeggiator(seconds=4.0, backend="tpu"):
+def ex_arpeggiator(seconds=4.0, backend="device"):
     sr = 48000.0
     step = 0.03
     chords = [
@@ -354,7 +354,7 @@ def ex_arpeggiator(seconds=4.0, backend="tpu"):
 # (one per key) + Decimator bitcrush on the mix.
 
 
-def ex_polyphony(seconds=5.0, dec_fake_rate=6000.0, backend="tpu"):
+def ex_polyphony(seconds=5.0, dec_fake_rate=6000.0, backend="device"):
     sr = 48000.0
     total = int(seconds * sr)
     keys = [(i, 0.15 + 0.11 * i) for i in range(12)]  # staggered chord roll
@@ -441,7 +441,7 @@ class _StereoNoise:
         return {"pan_cnt": pan_cnt, "l0": l, "b0": b}, out
 
 
-def ex_stereo(seconds=6.0, backend="tpu"):
+def ex_stereo(seconds=6.0, backend="device"):
     sr = 48000.0
     total = int(seconds * sr)
     if backend == "oracle":
@@ -512,7 +512,7 @@ class _DetunedInstrument:
         return {"cnt": cnt, "nl": nl, "nb": nb, "l": l, "b": b}, out
 
 
-def ex_detuned(seconds=5.0, backend="tpu"):
+def ex_detuned(seconds=5.0, backend="device"):
     from ..ops import delay as d_ops
 
     sr = 48000.0
@@ -552,7 +552,7 @@ def ex_detuned(seconds=5.0, backend="tpu"):
 # when all keys were released.
 
 
-def ex_portamento(seconds=4.0, backend="tpu"):
+def ex_portamento(seconds=4.0, backend="device"):
     sr = 48000.0
     total = int(seconds * sr)
     # scripted mono keyboard: (time, freq or None=all released)
@@ -636,7 +636,7 @@ def ex_portamento(seconds=4.0, backend="tpu"):
 # follow portamento-smoothed pointer coordinates (linear 0.1 glides).
 
 
-def ex_mouse(seconds=4.0, backend="tpu"):
+def ex_mouse(seconds=4.0, backend="device"):
     sr = 48000.0
     total = int(seconds * sr)
     # scripted pointer path: (t, x, y) in [0,1]^2, sampled as events with
@@ -682,7 +682,7 @@ def ex_mouse(seconds=4.0, backend="tpu"):
 from .instruments import FMSynthInstrument  # noqa: E402
 
 
-def ex_fmsynth(seconds=4.0, backend="tpu"):
+def ex_fmsynth(seconds=4.0, backend="device"):
     sr = 48000.0
     total = int(seconds * sr)
     song = _simple_song([
@@ -708,7 +708,7 @@ def ex_fmsynth(seconds=4.0, backend="tpu"):
 # arguments of the shared SamplerInstrument (host/configs.py).
 
 
-def ex_sampler(seconds=6.0, backend="tpu"):
+def ex_sampler(seconds=6.0, backend="device"):
     from .configs import build_sampler_performance
 
     if backend == "oracle":
@@ -727,7 +727,7 @@ def ex_sampler(seconds=6.0, backend="tpu"):
 # exercised, not just round-robin.
 
 
-def ex_polyphony2(seconds=6.0, backend="tpu"):
+def ex_polyphony2(seconds=6.0, backend="device"):
     sr = 48000.0
     a4 = 220.0
     total = int(seconds * sr)
@@ -745,7 +745,7 @@ def ex_polyphony2(seconds=6.0, backend="tpu"):
 # voice through StereoEchoes(15000) (examples/modules.zig:464-525).
 
 
-def ex_delay(seconds=8.0, backend="tpu"):
+def ex_delay(seconds=8.0, backend="device"):
     from ..ops import delay as d_ops
 
     sr = 48000.0
@@ -804,7 +804,7 @@ end
 """
 
 
-def ex_script(seconds=6.0, backend="tpu"):
+def ex_script(seconds=6.0, backend="device"):
     sr = 44100.0
     song = _simple_song([
         (0.2 + 0.45 * i, 0.3, A4 * tt.rel_freq(n))
@@ -821,7 +821,7 @@ def ex_script(seconds=6.0, backend="tpu"):
 # rendered again — the two halves are concatenated.
 
 
-def ex_script_runtime(seconds=6.0, backend="tpu"):
+def ex_script_runtime(seconds=6.0, backend="device"):
     import tempfile
 
     from ..script.runtime import LiveScript
@@ -874,7 +874,7 @@ def ex_script_runtime(seconds=6.0, backend="tpu"):
 SONG_CHUNK = 65536
 
 
-def ex_song(seconds=20.0, backend="tpu"):
+def ex_song(seconds=20.0, backend="device"):
     from ..graph.render import render_performance as rp
     from . import song as sm
 
@@ -916,9 +916,9 @@ EXAMPLES = {
 def main(argv=None):
     import argparse
 
-    from ..platform import apply_platform_env
+    from ..platform import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
 
     from ..core.mixdown import mixdown_s16_np
     from ..core.wav import write_wav_s16

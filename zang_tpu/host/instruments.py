@@ -1,4 +1,4 @@
-"""Device-side instruments: TPU counterparts of examples/modules.zig.
+"""Device-side instruments: JAX counterparts of examples/modules.zig.
 
 Each instrument implements the graph.render Instrument protocol:
 plan() compiles note timelines into segment programs (host): exact u32
@@ -180,18 +180,11 @@ class NiceInstrument:
         }
 
     def render(self, state, prog, ctx):
-        import os
-
         act = _active(prog, ctx)
         phase = prog["phase"]
-        # table-cut path: hand the filter the piecewise cutoff as boundary
-        # tables (ops.filters.svf_filter_table) instead of materializing a
-        # [V, n] array — on TPU the Pallas kernel then skips two full HBM
-        # streams (cut + act). Requires the tiled chunk format.
-        table = (
-            isinstance(phase, dict) and "tb" in phase
-            and os.environ.get("ZANG_SVF_TABLE", "1") != "0"
-        )
+        # tiled chunk format: the filter evaluates the piecewise cutoff
+        # from its boundary tables (ops.filters.svf_filter_table)
+        table = isinstance(phase, dict) and "tb" in phase
         if table:
             vals = eval_chunk(
                 {k: v for k, v in phase.items() if k != "cut"}, ctx.t_idx)

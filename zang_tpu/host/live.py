@@ -1,4 +1,4 @@
-"""Live (interactive) host: the TPU analog of the SDL audio-callback loop.
+"""Live (interactive) host: the device analog of the SDL audio-callback loop.
 
 The reference host (examples/example.zig:35-83,423-440) runs a real-time
 loop: the main thread pushes key events into an ImpulseQueue under a lock;
@@ -20,9 +20,8 @@ Events pushed with impulse_frame=0 take effect at the next block start —
 matching the reference host, whose getImpulseFrame() always returns 0
 (examples/example.zig:576-583).
 
-Latency is one block. On a local TPU a 1024-sample block at 48 kHz
-(21 ms) is comfortably real-time; through a remote-dispatch tunnel use
-4096+ sample blocks.
+Latency is one block: a 1024-sample block at 48 kHz has a 21.3 ms budget
+(block times on the GPU: not measured yet).
 """
 
 import copy

@@ -428,9 +428,9 @@ def main(argv=None) -> int:
     """CLI: python -m zang_tpu.host.midi song.mid out.wav [options]"""
     import argparse
 
-    from ..platform import apply_platform_env
+    from ..platform import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
 
     ap = argparse.ArgumentParser(
         prog="zang-midi",

@@ -1,7 +1,7 @@
 """Offline WAV renderer CLI — the write_wav.zig equivalent.
 
     python -m zang_tpu.host.render_wav <config> out.wav [--seconds N]
-                                                        [--engine tpu|oracle]
+                                                        [--engine device|oracle]
                                                         [--chunk N]
                                                         [--voices N]
 
@@ -24,14 +24,14 @@ from . import song as song_mod
 
 
 def main(argv=None):
-    from ..platform import apply_platform_env
+    from ..platform import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="zang-render", description=__doc__)
     ap.add_argument("config", choices=["song", "sampler", "poly_echo"])
     ap.add_argument("output")
     ap.add_argument("--seconds", type=float, default=None)
-    ap.add_argument("--engine", choices=["tpu", "oracle", "oracle-exact"], default="tpu")
+    ap.add_argument("--engine", choices=["device", "oracle", "oracle-exact"], default="device")
     ap.add_argument("--chunk", type=int, default=65536)
     ap.add_argument("--voices", type=int, default=1024, help="poly_echo voice count")
     args = ap.parse_args(argv)
@@ -40,7 +40,7 @@ def main(argv=None):
     if args.config == "song":
         seconds = args.seconds if args.seconds is not None else song_mod.NUM_SECONDS
         sr = int(song_mod.SAMPLE_RATE)
-        if args.engine == "tpu":
+        if args.engine == "device":
             mix = song_mod.render_song(seconds, chunk_size=args.chunk)
         else:
             mode = "parity" if args.engine == "oracle" else "exact"
@@ -50,7 +50,7 @@ def main(argv=None):
     else:
         from . import configs
 
-        if args.engine != "tpu":
+        if args.engine != "device":
             ap.error(f"--engine {args.engine} only supported for config 'song'")
         sr = 44100
         if args.config == "sampler":

@@ -3,7 +3,7 @@
 The reference has no session persistence (SURVEY.md §5 — "resume" is
 init()); the serving tier needs it: draining a server, rebalancing lanes
 across chips, or surviving a restart must not kill a musician's session.
-The TPU design makes this tractable — device state is a pytree of small
+The device design makes this tractable — device state is a pytree of small
 arrays (values, not objects), and all host state (queues, dispatchers,
 triggers, incremental planner walks) is plain data plus the callables the
 instrument spec reconstructs.

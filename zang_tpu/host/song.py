@@ -79,7 +79,7 @@ def build_performance(total_frames: int, song=None) -> Performance:
 
 
 def render_song(seconds: float = NUM_SECONDS, chunk_size: int = 65536) -> np.ndarray:
-    """TPU render of the song -> f32 [total] mix (pre-mixdown)."""
+    """Device render of the song -> f32 [total] mix (pre-mixdown)."""
     total = int(seconds * SAMPLE_RATE)
     perf = build_performance(total)
     return render_performance(perf, total, chunk_size=chunk_size)[0]

@@ -1,4 +1,4 @@
-"""TPU kernels: the DSP module library, re-architected for XLA/Pallas.
+"""Device ops: the DSP module library, re-architected for XLA/Pallas.
 
 Design (see SURVEY.md §7): modules are pure functions over [..., time]
 float32 tensors with small state pytrees. Per-sample recurrences become:

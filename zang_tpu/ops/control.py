@@ -3,7 +3,7 @@
 The reference's Envelope/Portamento are per-sample state machines driven by a
 goal-seeking Painter (src/zang/painter.zig:67-120, src/modules/Envelope.zig:38-108,
 src/modules/Portamento.zig:24-48). Their control flow depends only on note
-events and note-constant params — never on audio — so on TPU we compile them
+events and note-constant params — never on audio — so we compile them
 host-side into segment programs where, per segment,
 
     value[t] = a + b * shape(min(t0 + (dt + 1) * t_step, 1)),  dt = t - start

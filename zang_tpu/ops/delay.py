@@ -3,7 +3,7 @@
 The reference's Delay is a ring buffer with a two-phase chunked read/write
 API whose chunk length is anything <= the delay length (src/zang/delay.zig:
 28-89). That protocol is chunking-invariant: any read-n/write-n sequence
-with n <= D produces identical "delay by D samples" behavior. On TPU we
+with n <= D produces identical "delay by D samples" behavior. We
 exploit that freedom:
 
 - SimpleDelay (no feedback, examples/modules.zig:341-384): a pure shift —

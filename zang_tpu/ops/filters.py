@@ -11,14 +11,13 @@ the scan's association order; the filter is contractive, so deviations stay
 at the 1e-6 level (measured in tests) instead of accumulating.
 """
 
-import os
 from typing import Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import pallas_mode
+from . import backend
 from .scan import affine2_scan
 
 Array = jnp.ndarray
@@ -44,14 +43,15 @@ def cutoff_from_frequency(frequency, sample_rate):
     return jnp.sqrt(jnp.clip(v, 0.0, 1.0))
 
 
-def _svf_step(l, b, inp, cut, res):
+def _svf_step(l, b, inp, cut, res, off=FCDCOFFSET):
     """One output sample: the 2x oversampled update (Filter.zig:123-147).
 
-    Returns (l', b', weighted-output-parts (l_out, b_out, h_out)).
-    All ops f32 in the reference's expression order.
+    Returns (l', b', h) — post-step state and the pre-step high-pass part.
+    All ops f32 in the reference's expression order. The GPU kernel gates
+    inactive samples with cut = off = 0.0, an exact identity on (l, b).
     """
     inv = inp + FCDCOFFSET
-    l = l + cut * b - FCDCOFFSET
+    l = l + cut * b - off
     b = b + cut * (inv - b * res - l)
     l = l + cut * b
     h = inv - b * res - l
@@ -75,23 +75,7 @@ def svf_filter_table(
 
     tb/cutv: [V, nt, S] absolute boundary frames / raw cutoff per slot;
     t0: absolute frame of x[:, 0]; active_from: [V] first-active frame.
-    On TPU with nt == 128 lane blocks this avoids materializing (and
-    streaming through HBM twice) both the cutoff and the activity mask —
-    the Pallas kernels evaluate S selects per sample from KB-sized tables.
-    Elsewhere it falls back to evaluating the table and calling svf_filter
-    (identical semantics)."""
-    if (
-        pallas_mode.enabled()
-        and os.environ.get("ZANG_PALLAS_SVF", "1") != "0"
-        and x.ndim == 2
-    ):
-        from .pallas_svf import svf_filter_pallas_table, svf_table_supported
-
-        if svf_table_supported(x.shape, tb.shape, res):
-            return svf_filter_pallas_table(
-                l0, b0, x, filter_type, tb, cutv, res, t0, active_from,
-                interpret=pallas_mode.force_interpret())
-
+    Evaluates the tables in XLA and calls svf_filter (same semantics)."""
     from .segprog import eval_tiled_chunk
 
     n = x.shape[1]
@@ -127,27 +111,24 @@ def svf_filter(
         out = x if active is None else jnp.where(active, x, 0.0)
         return l0, b0, out
 
-    # Pallas fast path (TPU only): block-parallel two-phase kernel with ~3
-    # HBM passes instead of the affine scan's ~log2(n) levels, and tighter
-    # numerics (exact sequential arithmetic within 128 blocks). Ablation:
-    # the affine scan owned ~half the Bach render's device time.
-    if (
-        pallas_mode.enabled()
-        and os.environ.get("ZANG_PALLAS_SVF", "1") != "0"
-        and x.ndim == 2
-        and jnp.ndim(res) == 0
-        and filter_type != "mix"
-    ):
-        from .pallas_svf import svf_filter_pallas, svf_supported
+    # GPU: the two-phase block kernel (ops/pallas_svf.py), ~3 passes over
+    # memory instead of the affine scan's ~log2(n) levels
+    if backend.use_kernel(mix=filter_type == "mix",
+                          per_sample_res=jnp.ndim(res) != 0):
+        from .pallas_svf import svf_filter_pallas
 
-        if svf_supported(x.shape, res):
-            return svf_filter_pallas(l0, b0, x, filter_type, cutoff, res, active,
-                                     interpret=pallas_mode.force_interpret())
+        return svf_filter_pallas(l0, b0, x, FILTER_MULS[filter_type], cutoff,
+                                 res, active)
 
-    if filter_type == "mix":
-        l_mul, b_mul, h_mul = muls
-    else:
-        l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    if filter_type != "mix":
+        muls = FILTER_MULS[filter_type]
+    return svf_filter_affine(l0, b0, x, muls, cutoff, res, active)
+
+
+def svf_filter_affine(l0, b0, x, muls, cutoff, res, active=None):
+    """The plain XLA path of svf_filter: an affine scan over time. muls:
+    the (l, b, h) output weights, static or broadcastable to x."""
+    l_mul, b_mul, h_mul = muls
     cut = jnp.clip(jnp.asarray(cutoff, jnp.float32), 0.0, 1.0)
     r = jnp.float32(1.0) - jnp.clip(jnp.asarray(res, jnp.float32), 0.0, 1.0)
     cut = jnp.broadcast_to(cut, x.shape)

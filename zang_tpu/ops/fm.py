@@ -6,10 +6,9 @@ reference (SURVEY.md §7 hard part #1): when feedback != 0 the output feeds
 back through sin(), so no associative-scan trick applies.
 
 - feedback == 0: fully parallel (phase prefix sum + elementwise shaping).
-- feedback != 0: a lax.scan over samples with the (prev1, prev2) carry,
-  batched over voices. Correct but sequential; a Pallas kernel that keeps
-  the loop on-chip with voices in lanes is the optimization path for large
-  voice counts.
+- feedback != 0: a sequential loop over samples with the (prev1, prev2)
+  carry, batched over voices: the Pallas kernel of ops/pallas_fm.py on a
+  GPU, a lax.scan on the CPU.
 """
 
 from typing import Optional, Tuple, Union
@@ -18,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from . import backend
 from .scan import exclusive_cumsum_u32, freq_to_ifreq, utof23
 
 Array = jnp.ndarray
@@ -82,29 +82,31 @@ def fm_osc(
         new_fb2 = out[..., -2] if out.shape[-1] >= 2 else fb1
         return cnt_end, (new_fb1, new_fb2), out
 
-    # sequential feedback path: Pallas kernel on TPU (the loop stays on-chip
-    # with voices in lanes; far faster to compile than a 65k-step scan and
-    # comparable at runtime), lax.scan elsewhere.
-    from . import pallas_mode
-
-    if pallas_mode.enabled() and base.ndim == 2:
+    # sequential feedback path: on a GPU the Pallas kernel keeps the
+    # whole loop inside one program (voices across threads); lax.scan on
+    # the CPU. waveform may be a static int OR a traced scalar (live
+    # parameter control feeds it from the per-block param vector) — the
+    # kernel takes it as a per-voice runtime operand either way
+    if backend.use_kernel():
         from .pallas_fm import fm_feedback_pallas
 
-        # waveform may be a static int OR a traced scalar (live parameter
-        # control feeds it from the per-block param vector) — the kernel
-        # takes it as a per-lane runtime operand either way
-        out, f1, f2 = fm_feedback_pallas(base, fb, waveform, fb1, fb2,
-                                         interpret=pallas_mode.force_interpret())
+        out, f1, f2 = fm_feedback_pallas(base, fb, waveform, fb1, fb2)
     else:
-        def step(carry, b):
-            c1, c2 = carry
-            p = b + (c1 + c2) * fb
-            sample = _shape_wave(p, waveform)
-            return (sample, c1), sample
-
-        base_t = jnp.moveaxis(base, -1, 0)  # [n, ...]
-        (f1, f2), out_t = jax.lax.scan(step, (fb1, fb2), base_t)
-        out = jnp.moveaxis(out_t, 0, -1)
+        out, f1, f2 = fm_feedback_scan(base, fb, waveform, fb1, fb2)
     if active is not None:
         out = jnp.where(active, out, 0.0)
     return cnt_end, (f1, f2), out
+
+
+def fm_feedback_scan(base, feedback, waveform, fb1, fb2):
+    """The plain XLA path of the feedback oscillator: a lax.scan over
+    samples, batched over voices. base: [..., n] phase angles. Returns
+    (out [..., n], new_fb1, new_fb2)."""
+
+    def step(carry, b):
+        c1, c2 = carry
+        sample = _shape_wave(b + (c1 + c2) * feedback, waveform)
+        return (sample, c1), sample
+
+    (f1, f2), out_t = jax.lax.scan(step, (fb1, fb2), jnp.moveaxis(base, -1, 0))
+    return jnp.moveaxis(out_t, 0, -1), f1, f2

@@ -1,7 +1,7 @@
 """Noise kernels: white and pink (src/modules/Noise.zig).
 
 White noise uses JAX's counter-based threefry PRNG (parallel, reproducible
-from a key — the TPU-native analog of the reference's per-instance xoshiro
+from a key — the parallel analog of the reference's per-instance xoshiro
 stream; noise has no golden-WAV comparison). Pink noise is Paul Kellett's
 7-tap filter (Noise.zig:54-69): six one-pole recurrences (parallelized with
 affine1_scan) plus one pure delay tap.

@@ -1,30 +1,35 @@
-"""Pallas TPU kernel for the SVF filter (src/modules/Filter.zig:96-151).
+"""Pallas (Triton) kernel for the SVF filter (src/modules/Filter.zig:96-151).
 
 The affine-scan formulation (ops/filters.py) is correct but log-depth: XLA
-materializes ~log2(n) levels of 6-component intermediates in HBM, and the
-render ablation (tools/ablate.py) shows the filter owning ~half the Bach
-render's device time. This kernel replaces it with a block-parallel
-two-phase evaluation whose HBM traffic is ~3 passes over the data:
+materializes ~log2(n) levels of 6-component intermediates in device
+memory. This kernel replaces it with a block-parallel two-phase evaluation
+whose memory traffic is ~3 passes over the data:
 
-  layout    time axis n = nb blocks x T samples; the nb=128 blocks ride the
-            lanes, voices ride sublanes, and the kernel walks the T
-            within-block samples sequentially (arrays are [T, Vp, nb]).
-  phase A   propagate THREE concrete states per block — (0,0), (1,0),
-            (0,1) — through the exact per-sample SVF step. The recurrence
-            is linear time-varying, so after T steps the three trajectories
-            determine the block's end-to-end affine map:
-            A = [s(e1)-s(0) | s(e2)-s(0)], c = s(0).
-  glue      a 128-long associative scan composes block maps into exclusive
-            prefixes and applies them to (l0, b0) -> per-block start states
-            (tiny: [Vp, nb] elements, plain XLA outside the kernel).
+  layout    the time axis n = nb blocks x T samples. Chain c = v*nb + j is
+            voice v's block j, so x.reshape(V*nb, T) is free. Each program
+            owns CHAIN_TILE chains (one per thread), walks their T samples
+            in a fori_loop over [C, K_TILE] tiles and carries the state in
+            registers. nb follows from the shape: enough chains to fill the
+            card's SMs.
+  phase A   propagate the zero-state trajectory and the two homogeneous
+            basis columns through each block. The recurrence is linear
+            time-varying, so these give the block's end-to-end affine map.
+  glue      an associative scan over the nb block maps (plain XLA, tiny:
+            [V, nb] elements) gives every block's start state.
   phase B   re-run the exact sequential recurrence from each block's start
             state and write the filter output (post-step l, b + pre-step h,
             Filter.zig:140-146) plus the final (l, b) carry.
 
-Within a block the arithmetic is bit-identical to the reference's
-sequential loop; only the nb-1 block seams go through the composed-map
-path, so deviation vs the oracle stays in the same class as the affine
-scan's (measured -145 dBFS on white-noise input).
+When the voices alone fill the card (nb == 1), phase A and the glue drop
+out and the kernel is the plain sequential loop.
+
+The activity gate rides in cut's sign (ce = cut >= 0 on active samples, -1
+on inactive), so inactive samples are exact identity steps. That is also
+how the wrapper pads time and voices: padded samples carry ce = -1.
+
+Within a block the arithmetic is the reference's sequential loop; only the
+nb-1 block seams go through the composed-map path, so the deviation from
+the oracle stays in the affine scan's class.
 """
 
 import functools
@@ -33,81 +38,61 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu_triton
 
+from . import backend
+from .filters import FCDCOFFSET, _svf_step
 from .scan import _affine2_combine
 
-LANES = 128  # blocks in lanes
-ROW_TILE = 128  # within-block samples per grid step
-V_TILE = 64  # voices (sublanes) per kernel instance; Vp > V_TILE splits the grid
-GATE_V_MIN = 256  # fold act into cut's sign at/above this padded voice count
+CHAIN_TILE = 128  # chains per program: one per thread of 4 warps
+TARGET_CHAINS = 1 << 17  # ~1k chains per SM on a 132-SM card
+K_TILE = 32  # samples per tile load: one 128-byte line of each chain
 
-FCDCOFFSET = np.float32(3.814697265625e-6)  # 2^-18, Filter.zig:8
-
-
-def _svf_step_rows(l, b, inp, cut, res, off=FCDCOFFSET):
-    """One SVF output sample on [Vp, nb] rows (Filter.zig:123-147).
-
-    In the gated variant, cut and off are 0.0 on inactive samples, which
-    makes the step an exact identity on (l, b)."""
-    inv = inp + FCDCOFFSET
-    l = l + cut * b - off
-    b = b + cut * (inv - b * res - l)
-    l = l + cut * b
-    h = inv - b * res - l
-    b = b + cut * h
-    return l, b, h
-
-
-def _row(ref, i):
-    return ref[pl.ds(i, 1)][0]  # [Vp, nb]
+_PARAMS = plgpu_triton.CompilerParams(num_warps=CHAIN_TILE // 32, num_stages=1)
 
 
 def _decode_gate(ce):
-    """cut-sign gating: ce = cut (>= 0 after the clip) on active samples,
-    -1 on inactive. Used by the large-V kernels, where dropping the act
-    array cuts HBM traffic by a third (the filter is bandwidth-bound there;
-    at small V the decode's extra serial ops cost more than they save)."""
+    """ce = cut (>= 0 after the clip) on active samples, -1 on inactive."""
     m = ce >= np.float32(0.0)
     cutm = jnp.where(m, ce, np.float32(0.0))
     offm = jnp.where(m, FCDCOFFSET, np.float32(0.0))
     return m, cutm, offm
 
 
-def _summary_kernel(x_ref, cut_ref, *rest, gated=False):
-    """Phase A. Grid (n_v, n_rt): voice tiles x row tiles (row tiles walk
-    sequentially per voice tile, so the scratch carries within one voice
-    tile). s_ref scratch [6, VB, nb]: the zero-state trajectory (l00, b00)
-    plus two basis trajectories; out_ref [6, VB, nb] per voice tile,
-    written on its last row step. The gated variant takes no act input
-    (gate encoded in cut's sign) and propagates homogeneous basis columns;
-    the probing variant carries full basis-state trajectories."""
-    if gated:
-        (res_ref, out_ref, s_ref), act_ref = rest, None
-    else:
-        act_ref, res_ref, out_ref, s_ref = rest
-    step = pl.program_id(1)
-    nsteps = pl.num_programs(1)
-    res = res_ref[0]
+def tile_columns(ref, t0):
+    """The K_TILE sample columns [C] of ref[:, t0:t0+K_TILE]: one [C, K]
+    tile load, split in registers. Each chain's samples are contiguous, so
+    the load reads whole cache lines; one [C] column per step would touch
+    C lines for 4 bytes each (at [16384, 65536] on an H100: 110.6 ms
+    against 12.1 ms with 32-sample tiles)."""
+    tile = ref[:, pl.ds(t0, K_TILE)]
+    return [c.reshape(c.shape[0]) for c in jnp.split(tile, K_TILE, axis=1)]
 
-    @pl.when(step == 0)
-    def _():
-        z = jnp.zeros_like(s_ref[0])
-        one = z + np.float32(1.0)
-        s_ref[0], s_ref[1] = z, z
-        s_ref[2], s_ref[3] = one, z
-        s_ref[4], s_ref[5] = z, one
+
+def join_columns(cols):
+    """Inverse of tile_columns' split: K columns [C] -> one [C, K] tile."""
+    if len(cols) == 1:
+        return cols[0][:, None]
+    evens, odds = join_columns(cols[0::2]), join_columns(cols[1::2])
+    return jnp.stack([evens, odds], axis=-1).reshape(cols[0].shape[0],
+                                                     len(cols))
+
+
+def _summary_kernel(x_ref, ce_ref, res_ref, out_ref):
+    """Phase A: x_ref/ce_ref [C, T]; out_ref [6, C] = (l00, b00) zero-state
+    end plus the two homogeneous basis columns (l10, b10), (l01, b01)."""
+    res = res_ref[0]
+    z = jnp.zeros((x_ref.shape[0],), jnp.float32)
+    one = z + np.float32(1.0)
 
     def body(i, carry):
-        l00, b00, l10, b10, l01, b01 = carry
-        x = _row(x_ref, i)
-        if gated:
-            # large-V path is throughput-bound: propagate the homogeneous
-            # (linear-part) dynamics for the two basis columns directly —
-            # 12 ops each vs a 16-op full step, with rounding absorbed by
-            # the filter's contractivity (state err stays at the ulp level)
-            _, cut, off = _decode_gate(_row(cut_ref, i))
-            nl00, nb00, _ = _svf_step_rows(l00, b00, x, cut, res, off)
+        t0 = i * K_TILE
+        for x, ce in zip(tile_columns(x_ref, t0), tile_columns(ce_ref, t0)):
+            l00, b00, l10, b10, l01, b01 = carry
+            _, cut, off = _decode_gate(ce)
+            nl00, nb00, _ = _svf_step(l00, b00, x, cut, res, off)
+            # homogeneous (linear-part) dynamics of the two basis columns:
+            # 12 ops each instead of a 16-op full step
             dl1 = l10 + cut * b10
             db1 = b10 - cut * (b10 * res + dl1)
             dl1 = dl1 + cut * db1
@@ -116,642 +101,150 @@ def _summary_kernel(x_ref, cut_ref, *rest, gated=False):
             db2 = b01 - cut * (b01 * res + dl2)
             dl2 = dl2 + cut * db2
             db2 = db2 - cut * (db2 * res + dl2)
-            return (nl00, nb00, dl1, db1, dl2, db2)
-        cut = _row(cut_ref, i)
-        act = _row(act_ref, i) != 0
-        nl00, nb00, _ = _svf_step_rows(l00, b00, x, cut, res)
-        nl10, nb10, _ = _svf_step_rows(l10, b10, x, cut, res)
-        nl01, nb01, _ = _svf_step_rows(l01, b01, x, cut, res)
-        return (
-            jnp.where(act, nl00, l00), jnp.where(act, nb00, b00),
-            jnp.where(act, nl10, l10), jnp.where(act, nb10, b10),
-            jnp.where(act, nl01, l01), jnp.where(act, nb01, b01),
-        )
+            carry = nl00, nb00, dl1, db1, dl2, db2
+        return carry
 
-    carry = tuple(s_ref[k] for k in range(6))
-    carry = jax.lax.fori_loop(0, x_ref.shape[0], body, carry)
+    carry = jax.lax.fori_loop(0, x_ref.shape[1] // K_TILE, body,
+                              (z, z, one, z, z, one))
     for k in range(6):
-        s_ref[k] = carry[k]
-
-    @pl.when(step == nsteps - 1)
-    def _():
-        for k in range(6):
-            out_ref[k] = s_ref[k]
+        out_ref[k, :] = carry[k]
 
 
-def _apply_kernel(x_ref, cut_ref, *rest, gated=False):
-    """Phase B. start_ref [2, VB, nb] block-start (l, b); muls_ref [3] SMEM
-    (l_mul, b_mul, h_mul); out_ref [RT, VB, nb]; end_ref [2, VB, nb] final
-    carry (valid after the last row step of each voice tile)."""
-    if gated:
-        (start_ref, res_ref, muls_ref, out_ref, end_ref, s_ref), act_ref = rest, None
-    else:
-        act_ref, start_ref, res_ref, muls_ref, out_ref, end_ref, s_ref = rest
-    step = pl.program_id(1)
-    nsteps = pl.num_programs(1)
+def _apply_kernel(x_ref, ce_ref, start_ref, res_ref, out_ref, end_ref, *,
+                  muls):
+    """Phase B: start_ref/end_ref [2, C] block start/end (l, b);
+    out_ref [C, T] the filter output."""
     res = res_ref[0]
-    lm, bm, hm = muls_ref[0], muls_ref[1], muls_ref[2]
-
-    @pl.when(step == 0)
-    def _():
-        s_ref[0] = start_ref[0]
-        s_ref[1] = start_ref[1]
+    lm, bm, hm = (np.float32(m) for m in muls)
 
     def body(i, carry):
+        t0 = i * K_TILE
         l, b = carry
-        x = _row(x_ref, i)
-        if gated:
-            m, cut, off = _decode_gate(_row(cut_ref, i))
-            nl, nb, h = _svf_step_rows(l, b, x, cut, res, off)
-            out = nl * lm + nb * bm + h * hm
-            out_ref[pl.ds(i, 1)] = jnp.where(m, out, np.float32(0.0))[None]
-            return nl, nb
-        cut = _row(cut_ref, i)
-        act = _row(act_ref, i) != 0
-        nl, nb, h = _svf_step_rows(l, b, x, cut, res)
-        out = nl * lm + nb * bm + h * hm
-        out_ref[pl.ds(i, 1)] = jnp.where(act, out, np.float32(0.0))[None]
-        return jnp.where(act, nl, l), jnp.where(act, nb, b)
+        outs = []
+        for x, ce in zip(tile_columns(x_ref, t0), tile_columns(ce_ref, t0)):
+            m, cut, off = _decode_gate(ce)
+            l, b, h = _svf_step(l, b, x, cut, res, off)
+            outs.append(jnp.where(m, l * lm + b * bm + h * hm,
+                                  np.float32(0.0)))
+        out_ref[:, pl.ds(t0, K_TILE)] = join_columns(outs)
+        return l, b
 
-    l, b = jax.lax.fori_loop(0, x_ref.shape[0], body, (s_ref[0], s_ref[1]))
-    s_ref[0] = l
-    s_ref[1] = b
-
-    @pl.when(step == nsteps - 1)
-    def _():
-        end_ref[0] = s_ref[0]
-        end_ref[1] = s_ref[1]
+    l, b = jax.lax.fori_loop(0, x_ref.shape[1] // K_TILE, body,
+                             (start_ref[0, :], start_ref[1, :]))
+    end_ref[0, :] = l
+    end_ref[1, :] = b
 
 
-@functools.partial(jax.jit, static_argnames=("t_rows", "interpret"))
-def _svf_blocks(x_t, cut_t, act_t, res, muls, l0, b0, t_rows,
-                interpret=False):
-    # act_t None selects the gated kernels (act encoded in cut's sign)
-    """x_t/cut_t/act_t: [T, Vp, nb] f32; res: [1] f32; muls: [3] f32;
-    l0/b0: [Vp] f32. Returns (out_t [T, Vp, nb], l_end [Vp], b_end [Vp])."""
-    T, Vp, nb = x_t.shape
-    vb = min(Vp, V_TILE)
-    grid = (Vp // vb, T // t_rows)
-    row_spec = pl.BlockSpec((t_rows, vb, nb), lambda v, i: (i, v, 0),
-                            memory_space=pltpu.VMEM)
+def _geometry(V: int, n: int):
+    """(nb, T, Vp): time blocks per voice, samples per block (a K_TILE
+    multiple), padded voice count. nb is the power of two that brings V*nb
+    chains to TARGET_CHAINS without blocks shorter than one tile; Vp*nb is
+    a CHAIN_TILE multiple."""
+    nb = 1
+    while V * nb < TARGET_CHAINS and n >= 2 * nb * K_TILE:
+        nb *= 2
+    T = -(-n // (nb * K_TILE)) * K_TILE
+    step = max(CHAIN_TILE // nb, 1)
+    Vp = -(-V // step) * step
+    return nb, T, Vp
 
-    def fixed(shape):
-        # per-voice-tile block, constant across row steps
-        return pl.BlockSpec(shape, lambda v, i: (0, v, 0),
-                            memory_space=pltpu.VMEM)
 
-    gated = act_t is None
-    row_inputs = [x_t, cut_t] if gated else [x_t, cut_t, act_t]
-    row_in_specs = [row_spec] * len(row_inputs)
-    summaries = pl.pallas_call(
-        functools.partial(_summary_kernel, gated=gated),
-        grid=grid,
-        in_specs=row_in_specs + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=fixed((6, vb, nb)),
-        out_shape=jax.ShapeDtypeStruct((6, Vp, nb), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((6, vb, nb), jnp.float32)],
-        interpret=interpret,
-    )(*row_inputs, res)
+@functools.partial(jax.jit, static_argnames=("muls", "nb", "interpret"))
+def _svf_chains(x2, ce2, res, l0, b0, muls, nb, interpret=False):
+    """x2/ce2: [Vp*nb, T] chain-major; res: [1]; l0/b0: [Vp].
+    Returns (out2 [Vp*nb, T], l_end [Vp], b_end [Vp])."""
+    chains, T = x2.shape
+    Vp = chains // nb
+    grid = (chains // CHAIN_TILE,)
+    rows = pl.BlockSpec((CHAIN_TILE, T), lambda i: (i, 0))
+    scalar = pl.BlockSpec((1,), lambda i: (0,))
 
-    # block map elements: M = [[a, b], [c, d]], v = [e, f]. The gated
-    # kernel propagates the homogeneous basis directly (columns ARE the
-    # map); the probing kernel needs the trajectory differences.
-    l00, b00, l10, b10, l01, b01 = [summaries[k] for k in range(6)]
-    if gated:
-        elems = (l10, l01, b10, b01, l00, b00)
+    def per_chain(k):
+        return pl.BlockSpec((k, CHAIN_TILE), lambda i: (0, i))
+
+    if nb == 1:
+        start = jnp.stack([l0, b0])
     else:
-        elems = (l10 - l00, l01 - l00, b10 - b00, b01 - b00, l00, b00)
-    inc = jax.lax.associative_scan(_affine2_combine, elems, axis=1)
-    ident_cols = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
-    exc = tuple(
-        jnp.concatenate(
-            [jnp.full((Vp, 1), iv, jnp.float32), m[:, :-1]], axis=1
-        )
-        for m, iv in zip(inc, ident_cols)
-    )
-    a, bmat, c, d, e, f = exc
-    start_l = a * l0[:, None] + bmat * b0[:, None] + e
-    start_b = c * l0[:, None] + d * b0[:, None] + f
-    start = jnp.stack([start_l, start_b])  # [2, Vp, nb]
+        summ = pl.pallas_call(
+            _summary_kernel,
+            grid=grid,
+            in_specs=[rows, rows, scalar],
+            out_specs=per_chain(6),
+            out_shape=jax.ShapeDtypeStruct((6, chains), jnp.float32),
+            backend="triton",
+            compiler_params=_PARAMS,
+            interpret=interpret,
+            name="svf_block_summary",
+        )(x2, ce2, res)
+        # block maps M = [[a, b], [c, d]], v = [e, f]: the homogeneous
+        # basis columns ARE the map, the zero-state end is v
+        l00, b00, l10, b10, l01, b01 = (
+            summ[k].reshape(Vp, nb) for k in range(6))
+        inc = jax.lax.associative_scan(
+            _affine2_combine, (l10, l01, b10, b01, l00, b00), axis=1)
+        ident = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+        a, bm, c, d, e, f = (
+            jnp.concatenate([jnp.full((Vp, 1), iv, jnp.float32), m[:, :-1]],
+                            axis=1)
+            for m, iv in zip(inc, ident))
+        start_l = a * l0[:, None] + bm * b0[:, None] + e
+        start_b = c * l0[:, None] + d * b0[:, None] + f
+        start = jnp.stack([start_l.reshape(chains), start_b.reshape(chains)])
 
-    out_t, end = pl.pallas_call(
-        functools.partial(_apply_kernel, gated=gated),
+    out2, end = pl.pallas_call(
+        functools.partial(_apply_kernel, muls=muls),
         grid=grid,
-        in_specs=row_in_specs + [fixed((2, vb, nb)),
-                  pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=[row_spec, fixed((2, vb, nb))],
-        out_shape=[jax.ShapeDtypeStruct((T, Vp, nb), jnp.float32),
-                   jax.ShapeDtypeStruct((2, Vp, nb), jnp.float32)],
-        scratch_shapes=[pltpu.VMEM((2, vb, nb), jnp.float32)],
+        in_specs=[rows, rows, per_chain(2), scalar],
+        out_specs=[rows, per_chain(2)],
+        out_shape=[jax.ShapeDtypeStruct((chains, T), jnp.float32),
+                   jax.ShapeDtypeStruct((2, chains), jnp.float32)],
+        backend="triton",
+        compiler_params=_PARAMS,
         interpret=interpret,
-    )(*row_inputs, start, res, muls)
-
-    # the signal's end state = the LAST block's exact sequential end
-    return out_t, end[0, :, -1], end[1, :, -1]
-
-
-# ---------------------------------------------------------------------------
-# Table-cut variant: cutoff (and the activity gate) come from per-lane-block
-# boundary tables instead of a materialized [V, n] array. The song/poly
-# cutoff is piecewise-constant per note segment (ops.segprog tiled format
-# "tb"/"cut" [V, nt, S] aligns with the kernel's lane blocks exactly when
-# nt == LANES), so the kernel reads ~KBs of tables instead of streaming two
-# full [V, n] f32 arrays (cut + act) through HBM twice each.
+        name="svf_block_apply",
+    )(x2, ce2, start, res)
+    # the signal's end state is each voice's LAST block's end
+    end = end.reshape(2, Vp, nb)[:, :, -1]
+    return out2, end[0], end[1]
 
 
-def _cut_from_table(tb_ref, cv_ref, base_ref, i_global):
-    """Evaluate the gate-encoded cutoff for one row: select over S slots of
-    (boundary, value) per (voice, lane block). Slot 0 is always active
-    (tb = INT32_MIN); value -1.0 marks inactive (pre-active_from).
-    Tables are [S, vb, nb] — slot leading so each slice is a full
-    sublane x lane tile."""
-    S = tb_ref.shape[0]
-    i_abs = base_ref[0] + i_global  # [nb] i32 absolute frames this row
-    ce = cv_ref[0]
-    for j in range(1, S):
-        ce = jnp.where(i_abs[None, :] >= tb_ref[j], cv_ref[j], ce)
-    return _decode_gate(ce)
-
-
-def _table_summary_kernel(x_ref, tb_ref, cv_ref, base_ref, res_ref, out_ref,
-                          s_ref):
-    """Phase A with table cut (gated math: homogeneous basis columns)."""
-    step = pl.program_id(1)
-    nsteps = pl.num_programs(1)
-    t_rows = x_ref.shape[0]
-    res = res_ref[0]
-
-    @pl.when(step == 0)
-    def _():
-        z = jnp.zeros_like(s_ref[0])
-        one = z + np.float32(1.0)
-        s_ref[0], s_ref[1] = z, z
-        s_ref[2], s_ref[3] = one, z
-        s_ref[4], s_ref[5] = z, one
-
-    def body(i, carry):
-        l00, b00, l10, b10, l01, b01 = carry
-        x = _row(x_ref, i)
-        _, cut, off = _cut_from_table(tb_ref, cv_ref, base_ref,
-                                      step * t_rows + i)
-        nl00, nb00, _ = _svf_step_rows(l00, b00, x, cut, res, off)
-        dl1 = l10 + cut * b10
-        db1 = b10 - cut * (b10 * res + dl1)
-        dl1 = dl1 + cut * db1
-        db1 = db1 - cut * (db1 * res + dl1)
-        dl2 = l01 + cut * b01
-        db2 = b01 - cut * (b01 * res + dl2)
-        dl2 = dl2 + cut * db2
-        db2 = db2 - cut * (db2 * res + dl2)
-        return (nl00, nb00, dl1, db1, dl2, db2)
-
-    carry = tuple(s_ref[k] for k in range(6))
-    carry = jax.lax.fori_loop(0, t_rows, body, carry)
-    for k in range(6):
-        s_ref[k] = carry[k]
-
-    @pl.when(step == nsteps - 1)
-    def _():
-        for k in range(6):
-            out_ref[k] = s_ref[k]
-
-
-def _table_apply_kernel(x_ref, tb_ref, cv_ref, base_ref, start_ref, res_ref,
-                        muls_ref, out_ref, end_ref, s_ref):
-    """Phase B with table cut."""
-    step = pl.program_id(1)
-    nsteps = pl.num_programs(1)
-    t_rows = x_ref.shape[0]
-    res = res_ref[0]
-    lm, bm, hm = muls_ref[0], muls_ref[1], muls_ref[2]
-
-    @pl.when(step == 0)
-    def _():
-        s_ref[0] = start_ref[0]
-        s_ref[1] = start_ref[1]
-
-    def body(i, carry):
-        l, b = carry
-        x = _row(x_ref, i)
-        m, cut, off = _cut_from_table(tb_ref, cv_ref, base_ref,
-                                      step * t_rows + i)
-        nl, nb, h = _svf_step_rows(l, b, x, cut, res, off)
-        out = nl * lm + nb * bm + h * hm
-        out_ref[pl.ds(i, 1)] = jnp.where(m, out, np.float32(0.0))[None]
-        return nl, nb
-
-    l, b = jax.lax.fori_loop(0, t_rows, body, (s_ref[0], s_ref[1]))
-    s_ref[0] = l
-    s_ref[1] = b
-
-    @pl.when(step == nsteps - 1)
-    def _():
-        end_ref[0] = s_ref[0]
-        end_ref[1] = s_ref[1]
-
-
-@functools.partial(jax.jit, static_argnames=("t_rows", "interpret"))
-def _svf_blocks_table(x_t, tb, cv, base, res, muls, l0, b0, t_rows,
-                      interpret=False):
-    """x_t: [T, Vp, nb] f32; tb/cv: [S, Vp, nb] gate-encoded boundary
-    tables (slot-leading layout — the slot axis must stay off the TPU lane
-    dimension); base: [1, nb] i32 absolute frame of each lane block's first
-    sample. Returns (out_t, l_end [Vp], b_end [Vp])."""
-    T, Vp, nb = x_t.shape
-    S = tb.shape[0]
-    vb = min(Vp, V_TILE)
-    grid = (Vp // vb, T // t_rows)
-    row_spec = pl.BlockSpec((t_rows, vb, nb), lambda v, i: (i, v, 0),
-                            memory_space=pltpu.VMEM)
-
-    def fixed(shape):
-        return pl.BlockSpec(shape, lambda v, i: (0, v, 0),
-                            memory_space=pltpu.VMEM)
-
-    table_specs = [
-        pl.BlockSpec((S, vb, nb), lambda v, i: (0, v, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((S, vb, nb), lambda v, i: (0, v, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, nb), lambda v, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    summaries = pl.pallas_call(
-        _table_summary_kernel,
-        grid=grid,
-        in_specs=[row_spec] + table_specs
-        + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=fixed((6, vb, nb)),
-        out_shape=jax.ShapeDtypeStruct((6, Vp, nb), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((6, vb, nb), jnp.float32)],
-        interpret=interpret,
-    )(x_t, tb, cv, base, res)
-
-    l00, b00, l10, b10, l01, b01 = [summaries[k] for k in range(6)]
-    elems = (l10, l01, b10, b01, l00, b00)
-    inc = jax.lax.associative_scan(_affine2_combine, elems, axis=1)
-    ident_cols = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
-    exc = tuple(
-        jnp.concatenate(
-            [jnp.full((Vp, 1), iv, jnp.float32), m[:, :-1]], axis=1
-        )
-        for m, iv in zip(inc, ident_cols)
-    )
-    a, bmat, c, d, e, f = exc
-    start_l = a * l0[:, None] + bmat * b0[:, None] + e
-    start_b = c * l0[:, None] + d * b0[:, None] + f
-    start = jnp.stack([start_l, start_b])
-
-    out_t, end = pl.pallas_call(
-        _table_apply_kernel,
-        grid=grid,
-        in_specs=[row_spec] + table_specs
-        + [fixed((2, vb, nb)),
-           pl.BlockSpec(memory_space=pltpu.SMEM),
-           pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=[row_spec, fixed((2, vb, nb))],
-        out_shape=[jax.ShapeDtypeStruct((T, Vp, nb), jnp.float32),
-                   jax.ShapeDtypeStruct((2, Vp, nb), jnp.float32)],
-        scratch_shapes=[pltpu.VMEM((2, vb, nb), jnp.float32)],
-        interpret=interpret,
-    )(x_t, tb, cv, base, start, res, muls)
-
-    return out_t, end[0, :, -1], end[1, :, -1]
-
-
-def svf_table_supported(x_shape, tb_shape, res) -> bool:
-    """Table path: n split into LANES lane blocks must line up with the
-    tiled program's nt tiles (tile == n // LANES)."""
-    return (
-        len(x_shape) == 2
-        and x_shape[1] % LANES == 0
-        and x_shape[1] // LANES >= 8
-        and len(tb_shape) == 3
-        and tb_shape[1] == LANES
-        and jnp.ndim(res) == 0
-    )
-
-
-def svf_filter_pallas_table(l0, b0, x, filter_type, tb, cutv, res, t0,
-                            active_from=None, interpret=False):
-    """SVF with per-lane-block cutoff tables (ops.segprog tiled format).
-
-    tb/cutv: [V, nt=LANES, S] — absolute boundary frames (slot 0 always
-    active) and per-slot raw cutoff values. t0: absolute frame of x[:, 0].
-    active_from: [V] absolute first-active frame (None = always active).
-    Semantically identical to svf_filter_pallas with
-    cut[v, t] = cutv[last slot with tb <= t] and
-    active[v, t] = t >= active_from[v]."""
-    import os
-
-    from .filters import FILTER_MULS
-
+def _svf_local(l0, b0, x, ce, res, *, muls, interpret):
+    """Pad [V, n] to the kernel geometry, run, and crop."""
     V, n = x.shape
-    # ZANG_SVF_ONEPASS=1 opts in to the one-pass voice-parallel kernel at
-    # large V (~1/3 the VPU ops of the two-phase design, exact sequential
-    # numerics). OFF by default: in the end-to-end poly render its extra
-    # voice-major relayouts exceed HBM at the optimal 65536 chunk, and at
-    # smaller chunks the whole pipeline (either kernel) loses more to
-    # chunk-size overheads than the kernel saves — measured round 2:
-    # 16k chunk -> RTF 10.4, 32k -> 14.6, 65k (two-phase) -> 18.9 at
-    # V=16384. Isolated at [16384, 65536] the kernel wins 55 ms vs 99 ms.
-    if (os.environ.get("ZANG_SVF_ONEPASS", "0") == "1"
-            and _onepass_geometry(V, n) is not None):
-        return svf_onepass_table(l0, b0, x, filter_type, tb, cutv, res, t0,
-                                 active_from, interpret=interpret)
-    T = n // LANES
-    Vp = max(-(-V // 8) * 8, 8)
-    if Vp > V_TILE:
-        Vp = -(-Vp // V_TILE) * V_TILE
-    t_rows = _pick_t_rows(T, Vp)
-
-    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
-    cv = jnp.clip(jnp.asarray(cutv, jnp.float32), 0.0, 1.0)
-    tb = jnp.asarray(tb, jnp.int32)
-    r = jnp.float32(1.0) - jnp.clip(jnp.asarray(res, jnp.float32), 0.0, 1.0)
-
-    # fold active_from into the table: clamp boundaries to af and prepend an
-    # always-on inactive slot (value -1 -> gate-decoded to identity). At
-    # t >= af the last clamped slot covering af wins, reproducing the
-    # covering segment's value exactly.
-    if active_from is not None:
-        af = jnp.asarray(active_from, jnp.int32)[:, None, None]
-        tb = jnp.maximum(tb, af)
-    neg = jnp.full((V, LANES, 1), np.int32(-(2**31)), jnp.int32)
-    tb = jnp.concatenate([neg, tb], axis=2)
-    cv = jnp.concatenate([jnp.full((V, LANES, 1), np.float32(-1.0)), cv],
-                         axis=2)
-    # [V, nt, S1] -> [S1, Vp, nb]: slot axis leads so VMEM tiles are
-    # (voice-sublane x lane) slabs
-    tb = jnp.moveaxis(tb, 2, 0)
-    cv = jnp.moveaxis(cv, 2, 0)
-
-    def pad_v(a, fill=0):
-        if Vp == V:
-            return a
-        pad = jnp.full(a.shape[:1] + (Vp - V,) + a.shape[2:], fill, a.dtype)
-        return jnp.concatenate([a, pad], axis=1)
-
-    def to_t(arr):
-        a = arr.reshape(V, LANES, T).transpose(2, 0, 1)
-        if Vp == V:
-            return a
-        return jnp.concatenate(
-            [a, jnp.zeros((T, Vp - V, LANES), jnp.float32)], axis=1
-        )
-
-    base = (jnp.int32(t0)
-            + jnp.arange(LANES, dtype=jnp.int32) * jnp.int32(T))[None, :]
-    muls = jnp.array([l_mul, b_mul, h_mul], jnp.float32)
-    l0p = jnp.zeros((Vp,), jnp.float32).at[:V].set(l0)
-    b0p = jnp.zeros((Vp,), jnp.float32).at[:V].set(b0)
-    out_t, l_end, b_end = _svf_blocks_table(
-        to_t(x), pad_v(tb, fill=np.int32(2**31 - 1)),
-        pad_v(cv, fill=np.float32(-1.0)), base, r.reshape(1), muls,
-        l0p, b0p, t_rows, interpret=interpret,
-    )
-    out = out_t.transpose(1, 2, 0)[:V].reshape(V, n)
+    nb, T, Vp = _geometry(V, n)
+    pad_t = nb * T - n
+    if Vp != V or pad_t:
+        x = jnp.pad(x, ((0, Vp - V), (0, pad_t)))
+        ce = jnp.pad(ce, ((0, Vp - V), (0, pad_t)),
+                     constant_values=np.float32(-1.0))
+        l0 = jnp.pad(l0, (0, Vp - V))
+        b0 = jnp.pad(b0, (0, Vp - V))
+    out2, l_end, b_end = _svf_chains(
+        x.reshape(Vp * nb, T), ce.reshape(Vp * nb, T), res, l0, b0,
+        muls=muls, nb=nb, interpret=interpret)
+    out = out2.reshape(Vp, nb * T)[:V, :n]
     return l_end[:V], b_end[:V], out
 
 
-def _pick_t_rows(T: int, Vp: int, budget_bytes: int = 1 << 20) -> int:
-    """Largest divisor of T (<= ROW_TILE) whose [t_rows, VB, 128] f32 tile
-    fits the per-input VMEM budget (VB = per-instance voice tile)."""
-    cap = max(budget_bytes // (min(Vp, V_TILE) * LANES * 4), 1)
-    best = 1
-    for d in range(1, min(ROW_TILE, T, cap) + 1):
-        if T % d == 0:
-            best = d
-    return best
-
-
-def svf_supported(x_shape, res) -> bool:
-    return (
-        len(x_shape) == 2
-        and x_shape[1] % LANES == 0
-        and x_shape[1] // LANES >= 8
-        and jnp.ndim(res) == 0
-    )
-
-
-def svf_filter_pallas(l0, b0, x, filter_type, cutoff, res, active=None,
+def svf_filter_pallas(l0, b0, x, muls, cutoff, res, active=None,
                       interpret=False):
-    """Drop-in for ops.filters.svf_filter on [V, n] f32 inputs with
-    n % 128 == 0. res must be a scalar. Returns (l_end [V], b_end [V],
-    out [V, n])."""
-    from .filters import FILTER_MULS
-
-    V, n = x.shape
-    T = n // LANES
-    Vp = max(-(-V // 8) * 8, 8)
-    if Vp > V_TILE:  # voice-tiled grid needs V_TILE | Vp
-        Vp = -(-Vp // V_TILE) * V_TILE
-    t_rows = _pick_t_rows(T, Vp)
-
-    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
+    """The SVF on [..., n] f32 inputs of any shape. muls: the static
+    (l, b, h) output weights of the filter type; res must be a scalar.
+    Returns (l_end [...], b_end [...], out [..., n])."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    V = int(np.prod(lead, dtype=np.int64))
     cut = jnp.clip(jnp.asarray(cutoff, jnp.float32), 0.0, 1.0)
-    r = jnp.float32(1.0) - jnp.clip(jnp.asarray(res, jnp.float32), 0.0, 1.0)
-    cut = jnp.broadcast_to(cut, x.shape)
-    # large V: the kernels are HBM-bound, so fold the gate into cut's sign
-    # and drop the act array (1/3 less traffic). Small V: keep the separate
-    # act array — the gate decode's serial ops cost more than they save.
-    gated = Vp >= GATE_V_MIN
-    if gated:
-        if active is not None:
-            cut = jnp.where(active, cut, jnp.float32(-1.0))
-        act = None
-    else:
-        act = (
-            jnp.ones(x.shape, jnp.float32)
-            if active is None
-            else jnp.asarray(active).astype(jnp.float32)
-        )
-
-    def to_t(arr):  # [V, n] -> [T, Vp, nb]; block-major time split
-        a = arr.reshape(V, LANES, T).transpose(2, 0, 1)
-        if Vp == V:
-            return a
-        return jnp.concatenate(
-            [a, jnp.zeros((T, Vp - V, LANES), jnp.float32)], axis=1
-        )
-
-    muls = jnp.array([l_mul, b_mul, h_mul], jnp.float32)
-    l0p = jnp.zeros((Vp,), jnp.float32).at[:V].set(l0)
-    b0p = jnp.zeros((Vp,), jnp.float32).at[:V].set(b0)
-    out_t, l_end, b_end = _svf_blocks(
-        to_t(x), to_t(cut), None if act is None else to_t(act),
-        r.reshape(1), muls, l0p, b0p, t_rows, interpret=interpret,
-    )
-    out = out_t.transpose(1, 2, 0)[:V].reshape(V, n)
-    return l_end[:V], b_end[:V], out
-
-
-# ---------------------------------------------------------------------------
-# One-pass voice-parallel kernel for LARGE voice counts.
-#
-# The two-phase design above exists to parallelize the TIME axis (128 blocks
-# on lanes) — necessary when voices alone can't fill the VPU (the Bach song
-# has 17). At large V the measured bottleneck inverts: the round-2 stage
-# split (V=16384, n=65536, real chip) put the two-phase table kernel at
-# ~75 ms against a ~21 ms HBM floor — VPU-op-bound at ~64 ops/voice-sample
-# (phase A's three trajectories + phase B's replay). With V >= ~4k voices
-# the lanes can be filled by VOICES instead: walk time sequentially, one
-# [VS, 128]-voice row per step, ~22 ops/voice-sample, x read once not
-# twice. No block seams either — the whole chunk is the exact sequential
-# reference arithmetic (Filter.zig:123-147 order), so numerics IMPROVE.
-
-ONEPASS_V_MIN = 4096  # padded voice count at/above which one-pass wins
-
-
-def _onepass_table_kernel(x_ref, tb_ref, cv_ref, start_ref, res_ref,
-                          muls_ref, base_ref, out_ref, end_ref, s_ref):
-    """Grid (n_vtiles, n_rowchunks). x_ref [t_rows, VS, 128] voice rows;
-    tb/cv [S, 1, VS, 128] gate-encoded boundary tables for the time tile
-    this row chunk lives in; start_ref [2, VS, 128] initial (l, b) per
-    voice tile; base_ref SMEM [1] absolute frame of sample 0."""
-    step = pl.program_id(1)
-    nsteps = pl.num_programs(1)
-    t_rows = x_ref.shape[0]
-    S = tb_ref.shape[0]
-    res = res_ref[0]
-    lm, bm, hm = muls_ref[0], muls_ref[1], muls_ref[2]
-
-    @pl.when(step == 0)
-    def _():
-        s_ref[0] = start_ref[0]
-        s_ref[1] = start_ref[1]
-
-    def body(i, carry):
-        l, b = carry
-        x = _row(x_ref, i)
-        i_abs = base_ref[0] + step * t_rows + i  # scalar absolute frame
-        ce = cv_ref[0, 0]
-        for j in range(1, S):
-            ce = jnp.where(i_abs >= tb_ref[j, 0], cv_ref[j, 0], ce)
-        m, cut, off = _decode_gate(ce)
-        nl, nb, h = _svf_step_rows(l, b, x, cut, res, off)
-        out = nl * lm + nb * bm + h * hm
-        out_ref[pl.ds(i, 1)] = jnp.where(m, out, np.float32(0.0))[None]
-        return nl, nb
-
-    l, b = jax.lax.fori_loop(0, t_rows, body, (s_ref[0], s_ref[1]))
-    s_ref[0] = l
-    s_ref[1] = b
-
-    @pl.when(step == nsteps - 1)
-    def _():
-        end_ref[0] = s_ref[0]
-        end_ref[1] = s_ref[1]
-
-
-@functools.partial(jax.jit, static_argnames=("t_rows", "tile_len", "vs",
-                                             "interpret"))
-def _svf_onepass_table(x_v, tb_v, cv_v, base, res, muls, l0, b0,
-                       t_rows, tile_len, vs, interpret=False):
-    """x_v: [n, VR, 128] f32 (voice v = row*128 + lane); tb_v/cv_v:
-    [S, nt, VR, 128] gate-encoded tables (time tile t covers samples
-    [t*tile_len, (t+1)*tile_len)); base: [1] i32; l0/b0: [VR, 128].
-    Returns (out_v [n, VR, 128], l_end [VR, 128], b_end [VR, 128])."""
-    n, VR, _ = x_v.shape
-    S = tb_v.shape[0]
-    grid = (VR // vs, n // t_rows)
-    row_spec = pl.BlockSpec((t_rows, vs, LANES), lambda v, i: (i, v, 0),
-                            memory_space=pltpu.VMEM)
-    tab_spec = pl.BlockSpec(
-        (S, 1, vs, LANES),
-        lambda v, i: (0, (i * t_rows) // tile_len, v, 0),
-        memory_space=pltpu.VMEM)
-    fixed = pl.BlockSpec((2, vs, LANES), lambda v, i: (0, v, 0),
-                         memory_space=pltpu.VMEM)
-    start = jnp.stack([l0, b0])
-    out_v, end = pl.pallas_call(
-        _onepass_table_kernel,
-        grid=grid,
-        in_specs=[row_spec, tab_spec, tab_spec, fixed,
-                  pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=[row_spec, fixed],
-        out_shape=[jax.ShapeDtypeStruct((n, VR, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((2, VR, LANES), jnp.float32)],
-        scratch_shapes=[pltpu.VMEM((2, vs, LANES), jnp.float32)],
-        # out rides x's HBM buffer: each row block is consumed before it is
-        # rewritten (same block index maps), and the [n, VR, 128] voice-
-        # major temporaries are exactly what blows HBM at large V x chunk
-        input_output_aliases={0: 0},
-        interpret=interpret,
-    )(x_v, tb_v, cv_v, start, res, muls, base)
-    return out_v, end[0], end[1]
-
-
-def _onepass_geometry(V: int, n: int):
-    """(Vp, vs, t_rows, tile_len) for the one-pass kernel, or None if the
-    shapes don't fit it. tile_len is the time-tile span of the incoming
-    [V, nt=LANES, S] table format (nt tiles of n/LANES samples)."""
-    if n % LANES:
-        return None
-    tile_len = n // LANES
-    t_rows = 1
-    for d in range(1, min(64, tile_len) + 1):
-        if tile_len % d == 0:
-            t_rows = d
-    if t_rows < 8:
-        return None
-    Vp = -(-V // LANES) * LANES  # multiple of 128 lanes
-    vs = min(64, Vp // LANES)
-    vtile = vs * LANES
-    Vp = -(-Vp // vtile) * vtile
-    if Vp < ONEPASS_V_MIN:
-        return None
-    return Vp, vs, t_rows, tile_len
-
-
-def svf_onepass_table(l0, b0, x, filter_type, tb, cutv, res, t0,
-                      active_from=None, interpret=False):
-    """One-pass drop-in for svf_filter_pallas_table at large V (same
-    argument contract: tb/cutv [V, nt=LANES, S] raw tables)."""
-    from .filters import FILTER_MULS
-
-    V, n = x.shape
-    geo = _onepass_geometry(V, n)
-    assert geo is not None
-    Vp, vs, t_rows, tile_len = geo
-    VR = Vp // LANES
-
-    l_mul, b_mul, h_mul = FILTER_MULS[filter_type]
-    cv = jnp.clip(jnp.asarray(cutv, jnp.float32), 0.0, 1.0)
-    tb = jnp.asarray(tb, jnp.int32)
-    r = jnp.float32(1.0) - jnp.clip(jnp.asarray(res, jnp.float32), 0.0, 1.0)
-    if active_from is not None:
-        af = jnp.asarray(active_from, jnp.int32)[:, None, None]
-        tb = jnp.maximum(tb, af)
-    neg = jnp.full((V, LANES, 1), np.int32(-(2 ** 31)), jnp.int32)
-    tb = jnp.concatenate([neg, tb], axis=2)
-    cv = jnp.concatenate([jnp.full((V, LANES, 1), np.float32(-1.0)), cv],
-                         axis=2)
-
-    # [V, nt, S1] -> [S1, nt, VR, 128]
-    def to_tab(a, fill):
-        if Vp != V:
-            pad = jnp.full((Vp - V,) + a.shape[1:], fill, a.dtype)
-            a = jnp.concatenate([a, pad], axis=0)
-        a = a.transpose(2, 1, 0)  # [S1, nt, Vp]
-        return a.reshape(a.shape[0], a.shape[1], VR, LANES)
-
-    def to_v(arr):  # [V, n] -> [n, VR, 128]
-        if Vp != V:
-            arr = jnp.concatenate(
-                [arr, jnp.zeros((Vp - V, n), jnp.float32)], axis=0)
-        return arr.transpose(1, 0).reshape(n, VR, LANES)
-
-    base = jnp.asarray([t0], jnp.int32)
-    muls = jnp.array([l_mul, b_mul, h_mul], jnp.float32)
-    l0p = jnp.zeros((Vp,), jnp.float32).at[:V].set(l0).reshape(VR, LANES)
-    b0p = jnp.zeros((Vp,), jnp.float32).at[:V].set(b0).reshape(VR, LANES)
-    out_v, l_end, b_end = _svf_onepass_table(
-        to_v(x), to_tab(tb, np.int32(2 ** 31 - 1)),
-        to_tab(cv, np.float32(-1.0)), base, r.reshape(1), muls,
-        l0p, b0p, t_rows, tile_len, vs, interpret=interpret)
-    out = out_v.reshape(n, Vp).transpose(1, 0)[:V]
-    return (l_end.reshape(Vp)[:V], b_end.reshape(Vp)[:V], out)
+    ce = jnp.broadcast_to(cut, x.shape)
+    if active is not None:
+        ce = jnp.where(active, ce, np.float32(-1.0))
+    r = (np.float32(1.0)
+         - jnp.clip(jnp.asarray(res, jnp.float32), 0.0, 1.0)).reshape(1)
+    run = functools.partial(_svf_local, muls=tuple(float(m) for m in muls),
+                            interpret=interpret)
+    l_end, b_end, out = backend.voice_parallel(
+        run,
+        (jnp.broadcast_to(jnp.asarray(l0, jnp.float32), lead).reshape(V),
+         jnp.broadcast_to(jnp.asarray(b0, jnp.float32), lead).reshape(V),
+         x.astype(jnp.float32).reshape(V, n), ce.reshape(V, n)),
+        (r,))
+    return l_end.reshape(lead), b_end.reshape(lead), out.reshape(x.shape)

@@ -16,7 +16,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-import jax
 import jax.numpy as jnp
 
 from ..core.timeline import SubvoiceTimeline
@@ -131,39 +130,6 @@ def plan_sampler(
     return SegProgram(starts=starts, values=values)
 
 
-_WIN_TILE = 512  # lookup tile (pallas table-lookup kernel granularity)
-
-
-def lookup_accelerated(num_samples: int) -> bool:
-    """Can the pallas table-lookup kernel serve this table? (VMEM-resident
-    [128, H] layout — ops/pallas_lookup.py)."""
-    from .pallas_lookup import LANE, MAX_H
-
-    return 0 < num_samples <= LANE * MAX_H
-
-
-def _pallas_taps(idx: jnp.ndarray, ok: jnp.ndarray, table: jnp.ndarray,
-                 num_samples: int, loop: bool,
-                 interpret: bool = False) -> jnp.ndarray:
-    """Exact tap values (table[idx % N], ok=False -> 0) via the VMEM
-    table-lookup kernel — no XLA gather."""
-    from .pallas_lookup import pack_table, table_lookup_pallas
-
-    V, n = idx.shape
-    if loop:
-        idxm = jnp.remainder(idx, num_samples)
-        sel = ok
-    else:
-        sel = ok & (idx >= 0) & (idx < num_samples)
-        idxm = jnp.clip(idx, 0, num_samples - 1)
-    nt = (V * n) // _WIN_TILE
-    out = table_lookup_pallas(
-        idxm.reshape(nt, _WIN_TILE).astype(jnp.int32),
-        sel.reshape(nt, _WIN_TILE).astype(jnp.float32),
-        pack_table(table), interpret=interpret)
-    return out.reshape(V, n)
-
-
 def eval_sampler(
     vals: dict,
     t_idx: jnp.ndarray,
@@ -171,13 +137,9 @@ def eval_sampler(
     num_samples: int,
     ratio: float,
     loop: bool,
-    windowed: bool = False,
 ) -> jnp.ndarray:
     """Device: per-sample playback from pconst-evaluated program values.
-
-    windowed=True routes taps through the VMEM table-lookup kernel on TPU
-    (ops/pallas_lookup.py) — same tap values bit-for-bit. The gather path
-    serves CPUs, odd chunk sizes, and tables too large for VMEM."""
+    The taps are plain XLA gathers from the decoded table."""
     dt = (t_idx[None, :] - vals["seg_start"]).astype(jnp.float32)
     mode = vals["mode"]
     ratio_f = jnp.float32(ratio)
@@ -188,46 +150,13 @@ def eval_sampler(
     tfrac = (it0 + 1).astype(jnp.float32) - t
     ifast = vals["t0"].astype(jnp.int32) + dt.astype(jnp.int32)
 
-    import os
+    def tap(index: jnp.ndarray) -> jnp.ndarray:
+        if loop:
+            index = jnp.remainder(index, num_samples)
+        ok = (index >= 0) & (index < num_samples)
+        return jnp.where(ok, table[jnp.clip(index, 0, max(num_samples - 1, 0))], 0.0)
 
-    from . import pallas_mode
-
-    n = t_idx.shape[0]
-    # NOTE: both flags are read at TRACE time — toggling them once the
-    # surrounding jit cache is warm has no effect in the same process
-    # (same caveat as ZANG_SVF_TABLE; see ops/pallas_mode.py).
-    interp = (
-        os.environ.get("ZANG_LOOKUP_INTERPRET", "0") == "1"
-        or pallas_mode.force_interpret()
-    )
-    use_pallas = (
-        windowed
-        and n % _WIN_TILE == 0
-        and lookup_accelerated(num_samples)
-        and os.environ.get("ZANG_PALLAS_LOOKUP", "1") != "0"
-        and (jax.default_backend() != "cpu" or interp)
-    )
-    if use_pallas:
-        ones = jnp.ones(it0.shape, dtype=bool)
-        # one lookup serves both modes' first tap (their indices are
-        # program-span disjoint); the second tap only matters in resample
-        # mode but is harmless elsewhere
-        idx_a = jnp.where(mode == 2, ifast, it0)
-        tap_a = _pallas_taps(idx_a, ones, table, num_samples, loop,
-                             interpret=interp)
-        tap_b = _pallas_taps(it0 + 1, ones, table, num_samples, loop,
-                             interpret=interp)
-        s_re = tap_a * (jnp.float32(1.0) - tfrac) + tap_b * tfrac
-        s_fast = tap_a
-    else:
-        def tap(index: jnp.ndarray) -> jnp.ndarray:
-            if loop:
-                index = jnp.remainder(index, num_samples)
-            ok = (index >= 0) & (index < num_samples)
-            return jnp.where(ok, table[jnp.clip(index, 0, max(num_samples - 1, 0))], 0.0)
-
-        s_re = tap(it0) * (jnp.float32(1.0) - tfrac) + tap(it0 + 1) * tfrac
-        # fast copy path (Sampler.zig:105-114)
-        s_fast = tap(ifast)
-    out = jnp.where(mode == 1, s_re, jnp.where(mode == 2, s_fast, jnp.float32(0.0)))
-    return out
+    s_re = tap(it0) * (jnp.float32(1.0) - tfrac) + tap(it0 + 1) * tfrac
+    # fast copy path (Sampler.zig:105-114)
+    s_fast = tap(ifast)
+    return jnp.where(mode == 1, s_re, jnp.where(mode == 2, s_fast, jnp.float32(0.0)))

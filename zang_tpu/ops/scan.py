@@ -1,4 +1,4 @@
-"""Parallel scan utilities: the TPU replacement for per-sample loops.
+"""Parallel scan utilities: the device replacement for per-sample loops.
 
 The reference carries tiny state across per-sample loops (oscillator phases,
 filter l/b, envelope timers — SURVEY.md §2b). Here those recurrences become:
@@ -19,8 +19,7 @@ def pconst_multi(starts: jnp.ndarray, values: dict, t_idx: jnp.ndarray) -> dict:
     (f32 / i32 / u32); t_idx: [n] int32. Returns {name: [V, n]}.
 
     value(t) = sum_k [t >= starts_k] * (v_k - v_{k-1})  — a masked delta sum,
-    unrolled over K. On TPU this runs at VPU speed; a searchsorted+gather
-    formulation is ~300x slower (XLA lowers both as serialized scalar work).
+    unrolled over K: elementwise work with no gather or searchsorted.
     Segments must satisfy starts[:, 0] <= t_idx[0] wherever the value
     matters; padding entries need start > t_idx[-1] or zero delta.
     """
@@ -107,10 +106,9 @@ def _affine2_combine(x, y):
     """Compose two affine maps s -> M s + v on 2-state systems.
 
     Elements are (a, b, c, d, e, f) for M = [[a, b], [c, d]], v = [e, f].
-    Written as explicit elementwise arithmetic: on TPU, einsum/matmul would
-    route f32 through bf16 MXU passes at default precision, which destroys
-    the filter's precision (~-50 dB). Elementwise mul/add stays on the VPU
-    in full f32.
+    Written as explicit elementwise arithmetic: an einsum/matmul may run
+    below f32 at default precision (TF32 on the GPU's tensor cores), which
+    would destroy the filter's precision. Elementwise mul/add stays f32.
     """
     (a1, b1, c1, d1, e1, f1) = x
     (a2, b2, c2, d2, e2, f2) = y

@@ -1,6 +1,6 @@
 """Oracle twins for the example configs (host/examples.py).
 
-Each twin renders the same audio as its TPU config through the sequential
+Each twin renders the same audio as its device config through the sequential
 oracle modules (reference semantics, parity formulations), so every example
 gets an end-to-end golden comparison (tests/test_examples_golden.py) — the
 reference treats its examples as the acceptance suite (SURVEY.md §4).
@@ -136,7 +136,7 @@ def render_parts(parts, total, sr, num_channels=1, post=None) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# engine-shared noise tapes: the TPU renderer draws uniform tapes from
+# engine-shared noise tapes: the device renderer draws uniform tapes from
 # counter-based threefry keyed per chunk (script/jax_backend.py exec_op
 # "noise"; _StereoNoise/_DetunedInstrument in host/examples.py). threefry
 # is backend-invariant, so the oracle re-derives the identical stream.

@@ -10,7 +10,7 @@ Two modes:
             f32 adds, per-paint-call phase wraps).
 - "parity": the device contract — order-independent formulations (u32
             fixed-point phase counters, closed-form index arithmetic) that
-            the TPU engine reproduces bit-for-bit. Where the reference is
+            the device engine reproduces bit-for-bit. Where the reference is
             already fixed-point (PulseOsc, TriSawOsc const) or sequential
             in a way the device matches via tables (Envelope, Portamento),
             both modes are identical.

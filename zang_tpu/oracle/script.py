@@ -18,7 +18,7 @@ delay lines honor the declared ``num_samples`` (the reference hardcodes
 Delay(11025), runtime.zig:292) and a track_call's unpainted gaps read as
 silence in a temp dest.
 
-This is the golden twin of the JAX script backend: any script the TPU
+This is the golden twin of the JAX script backend: any script the device
 engine can render renders through this interpreter for parity testing
 (tests/test_examples_golden.py, tests/test_script_fuzz.py).
 """

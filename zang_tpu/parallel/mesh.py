@@ -4,8 +4,10 @@ The reference is single-process (SURVEY.md §2f); its natural scaling axis is
 polyphony. Here voices are a leading tensor axis everywhere, and mixdown is
 a sum (src/zang/mixdown.zig — associative), so scaling across chips is:
 shard every per-voice array (programs, states) along a 'voices' mesh axis,
-render locally, and psum partial mixes over ICI. XLA/GSPMD inserts the
-collective from sharding annotations — no hand-written comms.
+render locally, and psum partial mixes over the device links. XLA/GSPMD
+inserts the collective from sharding annotations — no hand-written comms.
+The GPU kernels, which GSPMD cannot partition, run per shard under a
+shard_map over the same voice axis (ops/backend.py).
 
 Voice counts are padded to a multiple of the mesh size with silent voices
 (empty timelines render exact zeros and carry no state transitions).
@@ -118,7 +120,11 @@ def render_performance_sharded(
 
     cache_dir = aot_cache or aotcache.default_cache_dir()
     args = (state0, starts, xs)
-    with mesh:
+    # jax.set_mesh (not the legacy `with mesh:`) makes the mesh visible
+    # while tracing, so the GPU kernels split the voice axis with a
+    # shard_map (ops/backend.voice_parallel) instead of leaving an opaque
+    # kernel call for GSPMD to gather
+    with jax.set_mesh(mesh):
         if cache_dir:
             try:
                 tag = ("mesh:" + aotcache.performance_tag(perf, chunk_size)

@@ -1,7 +1,7 @@
 """zangscript JAX backend: bytecode -> device render programs.
 
 Replaces the reference's Zig source emitter (codegen_zig.zig) and runtime
-interpreter (runtime.zig). The key TPU-first move: zangscript's float/buffer
+interpreter (runtime.zig). The key device-first move: zangscript's float/buffer
 type split maps exactly onto note-rate vs sample-rate computation.
 
 Plan phase (host, per performance):

@@ -3,7 +3,7 @@
 The reference ships a bytecode interpreter for live reload
 (src/zangscript/runtime.zig) that had hardcoded Delay(11025) and an
 unimplemented track_call (runtime.zig:292,508-514), and had bit-rotted out
-of the build. On TPU, re-jitting on reload is strictly better: the same
+of the build. Here, re-jitting on reload is strictly better: the same
 compiled-performance path serves both ahead-of-time and live use, honors
 declared delay lengths, and supports track calls.
 

@@ -68,7 +68,7 @@ def generate_python(cs, script_path: str, add_builtins=()) -> str:
     The generated module embeds the script source and rebuilds the compiled
     form at import (deterministic), exposing `load()` and
     `make_instrument(name, param_map=None)`. This replaces the reference's
-    Zig source emitter: on TPU the "generated code" is a JAX graph builder,
+    Zig source emitter: here the "generated code" is a JAX graph builder,
     so the artifact is the script + a builder entry point rather than
     hand-lowered source text.
     """

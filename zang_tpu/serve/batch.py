@@ -16,7 +16,7 @@ to disk segment by segment. The design decisions (SCALING.md tier 3):
   between songs); `max_attempts` bounds retries.
 
 The reference is single-process and has no serving layer (SURVEY.md §2f);
-this subsystem is the TPU-native scale-out story above it.
+this subsystem is the device-side scale-out story above it.
 """
 
 import hashlib
@@ -268,8 +268,8 @@ class SharedGraphCache:
             audio = jnp.moveaxis(chunks, 0, 1).reshape(chunks.shape[1], -1)
             if emit == "s16":
                 # mixdown on device: the serving fleet downloads i16 PCM,
-                # not f32 mix buffers (half the DCN/tunnel bytes, and the
-                # clamp/NaN/trunc rules run at VPU speed)
+                # not f32 mix buffers (half the download bytes, and the
+                # clamp/NaN/trunc rules run on device)
                 audio = mixdown_s16(audio, vol)
             return state, audio
 
@@ -538,9 +538,9 @@ def main(argv=None):
     import argparse
     import json
 
-    from ..platform import apply_platform_env
+    from ..platform import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
 
     from ..host import song as sm
 

@@ -3,7 +3,7 @@
 The reference's interactive host is an SDL event loop — key-downs/ups
 push impulses, the audio callback streams blocks out, backquote toggles
 the note recorder (examples/example.zig:393-400,423-440). This is that
-loop as a network client of the TPU serving tier: raw-mode terminal keys
+loop as a network client of the serving tier: raw-mode terminal keys
 map through the same two-row keyboard layout (host/keyboard.py,
 examples/common.zig:24-66), audio blocks stream back over TCP, and an
 optional WAV capture plays the write_wav role on the client side.
@@ -795,10 +795,6 @@ def _stdin_keys():
 
 def main(argv=None) -> int:
     import argparse
-
-    from ..platform import apply_platform_env
-
-    apply_platform_env()
 
     ap = argparse.ArgumentParser(
         prog="zang-play",

@@ -502,7 +502,7 @@ class RenderHTTPServer:
         ikey = ("stream", key)
         # single-flight on the miss: concurrent first requests must share
         # ONE jitted step object — jax.jit then serializes the compile
-        # internally, so the 19-454 s remote compile is paid once, not per
+        # internally, so the compile is paid once, not per
         # request (same mechanism as _render_cached's _inflight)
         counted_coalesced = False
         while True:
@@ -519,8 +519,8 @@ class RenderHTTPServer:
                     break
                 if not counted_coalesced:
                     # once per REQUEST: a wait timeout loops back here
-                    # (worst-case remote compile 454 s + warmup can exceed
-                    # one 600 s wait) and must not re-count
+                    # (a long compile can exceed one 600 s wait) and must
+                    # not re-count
                     self.stats_counts["coalesced"] += 1
                     counted_coalesced = True
             ev.wait(timeout=600.0)
@@ -782,9 +782,9 @@ def main(argv=None) -> int:
     """CLI: python -m zang_tpu.serve.http --port 9801"""
     import argparse
 
-    from ..platform import apply_platform_env
+    from ..platform import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
 
     ap = argparse.ArgumentParser(
         prog="zang-http",
